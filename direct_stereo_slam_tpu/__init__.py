@@ -1,14 +1,14 @@
-"""direct_stereo_slam_tpu — a TPU-native (JAX/XLA/Pallas) direct stereo SLAM framework.
+"""direct_stereo_slam_tpu — a JAX/XLA direct stereo SLAM framework.
 
 A from-scratch rebuild of the capabilities of IRVLab/direct_stereo_slam
 (DSO-style direct sparse odometry + 1-DoF stereo scale optimization +
 Scan-Context loop closure + SE(3) pose-graph optimization), re-designed
-TPU-first:
+as accelerator array programs:
 
 * fixed-shape array state (keyframe window, point budgets) with validity
   masks instead of pointer graphs,
-* one fused residual/Jacobian/Hessian kernel family (pure-XLA and Pallas
-  backends) shared by the coarse tracker, the stereo scale optimizer and
+* one fused residual/Jacobian/Hessian pass family (plain XLA) shared by
+  the coarse tracker, the stereo scale optimizer and
   the loop-closure pose estimator,
 * Levenberg-Marquardt loops as `lax.while_loop` inside single jitted
   programs, batched candidate tracking via `vmap`,

@@ -27,6 +27,35 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..utils.imageio import read_gray
+
+
+def read_pnm_numpy(path: str) -> np.ndarray:
+    """Binary PGM/PPM (P5/P6, 8- or 16-bit) with numpy alone: [H, W] or
+    [H, W, 3] in the file's own integer type."""
+    with open(path, "rb") as f:
+        data = f.read()
+    fields, pos = [], 0
+    while len(fields) < 4:
+        while data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":
+            pos = data.index(b"\n", pos) + 1
+            continue
+        end = pos
+        while end < len(data) and not data[end:end + 1].isspace():
+            end += 1
+        fields.append(data[pos:end])
+        pos = end
+    magic, w, h, maxval = fields[0], int(fields[1]), int(fields[2]), int(fields[3])
+    if magic not in (b"P5", b"P6"):
+        raise IOError(f"{path}: not a binary PGM/PPM ({magic!r})")
+    shape = (h, w, 3) if magic == b"P6" else (h, w)
+    dtype = np.dtype(np.uint8) if maxval < 256 else np.dtype(">u2")
+    n = int(np.prod(shape))
+    # exactly one whitespace byte separates maxval from the raster
+    return np.frombuffer(data, dtype, n, pos + 1).reshape(shape)
+
 
 def _imread_gray(path: str) -> np.ndarray:
     ext = os.path.splitext(path)[1].lower()
@@ -34,20 +63,12 @@ def _imread_gray(path: str) -> np.ndarray:
         try:
             from .native import read_pnm
             img = read_pnm(path)
-            if img.ndim == 3:
-                img = img.mean(axis=2)
-            return img.astype(np.float32)
-        except Exception:
-            pass
-    try:
-        import cv2
-        img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-        if img is None:
-            raise IOError(path)
+        except Exception:       # native library unavailable
+            img = read_pnm_numpy(path)
+        if img.ndim == 3:
+            img = img.mean(axis=2)
         return img.astype(np.float32)
-    except ImportError:
-        from PIL import Image
-        return np.asarray(Image.open(path).convert("L"), dtype=np.float32)
+    return read_gray(path)
 
 
 class StereoDirDataset:

@@ -1,7 +1,7 @@
 """Bag-like replay ingestion: timestamped, possibly-unsynced stereo
 streams -> matched pairs.
 
-TPU-native equivalent of the reference's ROS ingestion surface: rosbag
+Equivalent of the reference's ROS ingestion surface: rosbag
 replay iterates messages of both image topics in time order and feeds a
 ``message_filters::ApproximateTime`` synchronizer whose callback is the
 SLAM entry point (reference main.cpp:320-345; live mode main.cpp:355-362

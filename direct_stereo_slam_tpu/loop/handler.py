@@ -298,7 +298,7 @@ class LoopHandler:
                     self.intr, self.cfg,
                 )
                 res = bres.best
-                # per-try diagnostics: a chip lap with loop_count=0 must
+                # per-try diagnostics: a lap with loop_count=0 must
                 # say HOW marginal the rejections were (VERDICT r4 weak-5)
                 self.try_log.append((
                     float(res.pose_error), float(res.inlier_ratio),

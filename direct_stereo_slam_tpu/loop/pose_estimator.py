@@ -231,11 +231,11 @@ def estimate_batch(
     The coarse tracker escapes local minima with a 78-candidate
     perturbation try-list (FrontEnd.cpp:132-186); the reference's
     PoseEstimator gets only the single PCA seed, and its acceptance is
-    correspondingly marginal — measured chip laps swing 5 <-> 0 accepted
-    revisits on last-ulp numerics shifts because the LM converges to a
+    correspondingly marginal — revisit laps were seen to swing between 5
+    and 0 accepted revisits on last-ulp numerics shifts because the LM converges to a
     nearby local minimum whose level-0 residual sits just above
     RES_THRES. This is the try-list idea applied to loop closure, and on
-    TPU it is nearly free: vmap the whole coarse-to-fine LM over the seed
+    an accelerator it is nearly free: vmap the whole coarse-to-fine LM over the seed
     stack (batched matmuls/gathers, one dispatch ~ the cost of one seed)
     and select — ok seeds first, lowest pose_error among them.
     """

@@ -7,17 +7,18 @@ the dso/scale/pose error heuristics (LoopHandler.h:50-64), the *newest*
 vertex fixed (cpp:137 — the past bends, the present stays), 25 LM
 iterations per loop event.
 
-TPU-native: per-edge residuals r = log(Z^-1 T_a^-1 T_b) and their Jacobians
-via vmapped forward-mode autodiff through the Lie ops. Two solver backends
+Per-edge residuals r = log(Z^-1 T_a^-1 T_b) and their Jacobians via
+vmapped forward-mode autodiff through the Lie ops. Two solver backends
 (graphs are bucketed to fixed sizes):
 
-- "dense": Hessian scatter-added into [6N, 6N], LDLT solve. Fine to a few
-  hundred keyframes; at 2048 nodes the on-chip LU runs out of VMEM.
+- "dense": Hessian scatter-added into [6N, 6N], LU solve. Memory grows as
+  (6N)^2 floats (38 MB at 512 nodes, 604 MB at 2048) and the solve as N^3.
 - "cg": matrix-free block-Jacobi-preconditioned conjugate gradients — Hx
   is two gathers + two scatter-adds over the per-edge 12x12 blocks (O(E)
-  memory). Measured at 2048 nodes / 2018 edges on one v5e chip: 25 GN
-  iterations in 0.45 s, relative-to-newest drift 1.42 m -> 0.43 m, where
-  the dense path cannot allocate. "auto" switches at 512 nodes."""
+  memory), so graphs scale far past the dense path.
+
+"auto" takes the dense path up to 512 nodes and CG beyond. Both solve the
+same damped GN step; chip_smoke.py checks that they agree at 2048 nodes."""
 
 from __future__ import annotations
 
@@ -94,7 +95,7 @@ def _free_mask(data: PoseGraphData):
 
 
 def _solve_dense(data, Hblk, bblk, lam):
-    """Materialized [6N, 6N] LDLT solve (fine into the low thousands)."""
+    """Materialized [6N, 6N] LU solve (fine into the low thousands)."""
     N = data.T_wc.shape[0]
     H = jnp.zeros((N, 6, N, 6), jnp.float32)
     b = jnp.zeros((N, 6), jnp.float32)
@@ -187,7 +188,7 @@ def _solve_cg(data, Hblk, bblk, lam, cg_iters):
 def optimize(data: PoseGraphData, iterations: int = 25,
              huber_delta: float = 1.0, solver: str = "auto",
              cg_iters: int = 100) -> jnp.ndarray:
-    """Returns optimized [N, 4, 4] poses. solver: "dense" (LDLT on the
+    """Returns optimized [N, 4, 4] poses. solver: "dense" (LU on the
     materialized system), "cg" (matrix-free block-Jacobi PCG), or "auto"
     (dense up to 512 nodes, CG beyond)."""
     N = data.T_wc.shape[0]

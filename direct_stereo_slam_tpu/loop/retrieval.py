@@ -6,9 +6,9 @@ recent frames never match), then the Scan Context signature difference over
 the candidates. The FLANN KD-tree becomes a brute-force distance over the
 ringkey database — exact where the KD-tree is approximate. Below
 ``DEVICE_MIN`` entries the search is a numpy broadcast (20-dim keys over a
-few thousand frames cost microseconds and a device round-trip would
-dominate); past it the database lives in a power-of-2-capacity device
-buffer and the search is one jitted distance + top_k program on chip, so
+few thousand frames cost microseconds and a device dispatch and pull
+would dominate); past it the database lives in a power-of-2-capacity
+device buffer and the search is one jitted distance + top_k program, so
 retrieval stays O(ms) out to 100k+ keyframes (SURVEY.md §7)."""
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ idepth/weight map, 2x2 sum-pooled up the pyramid, hole-dilated (diagonal
 neighbors on levels 0-1, axis neighbors above — reference lines 190-275),
 then normalized and compacted into fixed-budget per-level point lists.
 
-TPU notes: scatter-add via ``.at[].add``; dilation via shifted adds (pure
-VPU); compaction via ``jnp.nonzero(size=...)`` so all shapes stay static.
+Array form: scatter-add via ``.at[].add``; dilation via shifted adds
+(elementwise); compaction via ``jnp.nonzero(size=...)`` so all shapes stay
+static.
 The whole build runs as one jitted program once per keyframe.
 """
 
@@ -103,10 +104,8 @@ def build_template(
     weight0 = jnp.zeros((H, W), jnp.float32).at[vi, ui].add(wgt)
 
     # pyramid of sums (2x2 sum-pool, reference lines 166-187). Reshape
-    # form, NOT four strided slices: strided slicing the fresh scatter
-    # output hit a pathological layout on TPU — the pool chain alone cost
-    # 17.5 ms/KF at KITTI res vs 1.5 ms for this form (r4 bisect; same
-    # trick as ops/pyramid's reshape-pool).
+    # form, NOT four strided slices of the fresh scatter output (same
+    # form as ops/pyramid's reshape-pool).
     def pool(x):
         h2, w2 = x.shape[0] // 2, x.shape[1] // 2
         return x[: 2 * h2, : 2 * w2].reshape(h2, 2, w2, 2).sum((1, 3))

@@ -1,6 +1,6 @@
 """Immature points: creation, epipolar trace, and activation.
 
-TPU-native equivalent of DSO's ``ImmaturePoint`` (creation +
+Equivalent of DSO's ``ImmaturePoint`` (creation +
 ``traceOn`` epipolar depth search; reference call sites FrontEnd.cpp:299-314,
 936-960) and the activation optimizer ``optimizeImmaturePoint``
 (FrontEndOptPoint.cpp:34-179). All operations are batched over a fixed
@@ -140,7 +140,8 @@ def trace_points(
     # skip already-OOB points (DSO keeps them OOB forever)
     traceable = pts.valid & (pts.status != IPS_OOB)
 
-    pr = jnp.stack([pts.u, pts.v, jnp.ones_like(pts.u)], -1) @ KRKi.T  # [NI,3]
+    pr = jnp.matmul(jnp.stack([pts.u, pts.v, jnp.ones_like(pts.u)], -1),
+                    KRKi.T, precision=_HI)                       # [NI,3]
     ptp_min = pr + Kt[None, :] * pts.idepth_min[:, None]
     u_min = ptp_min[:, 0] / ptp_min[:, 2]
     v_min = ptp_min[:, 1] / ptp_min[:, 2]
@@ -338,10 +339,9 @@ def activate_points(
         Kv = fy * vn + cy
         inb = (Ku > 2) & (Kv > 2) & (Ku < Wd - 3) & (Kv < H - 3) & (z > 1e-4)
 
-        # ROW-GATHER frames form: this pass's [lanes, Wn, 8] index sets
-        # (~16k-131k) are per-gather-OP latency bound, where the flat-take
-        # form's 12 takes cost 3.7x the 4 row gathers (chip A/B r5:
-        # activation chain 64 -> 17.4 ms, numerics bitwise-identical)
+        # ROW-GATHER frames form: 4 row gathers for this pass's
+        # [lanes, Wn, 8] index sets (~16k-131k) rather than the flat-take
+        # form's 12 takes (numerics bitwise-identical)
         t_fold = jnp.arange(Wn, dtype=jnp.int32)[:, None, None]
         hit_i, hit_dx, hit_dy = bilinear_gather_frames(images, t_fold, Ku, Kv)
         r = hit_i - (a_t[:, None, None] * pts.color[None] + b_t[:, None, None])
@@ -419,11 +419,9 @@ def can_activate(pts: ImmaturePoints, cfg: SLAMConfig) -> jnp.ndarray:
 #
 # The frontend keeps ONE ImmaturePoints pytree with a leading [S] slot axis
 # (rather than a dict of per-slot pytrees) so trace / activation / gating
-# over the whole window are single vmapped dispatches. On a remote-attached
-# TPU each dispatch has a multi-ms delivery latency; the per-slot loop cost
-# ~7x that latency every frame (trace) and ~3x7 per keyframe
-# (activate+gate+insert), which dominated the keyframe pipeline's 400 ms
-# device-queue drain (measured r2).
+# over the whole window are single vmapped dispatches, where a per-slot loop
+# would dispatch ~7 programs every frame (trace) and ~3x7 per keyframe
+# (activate+gate+insert).
 # ---------------------------------------------------------------------------
 
 
@@ -492,8 +490,7 @@ def trace_points_all_compact(
     """traceOn for the whole window with DEVICE-SIDE SEARCH COMPACTION.
 
     The fixed-shape form (trace_points_all) pays the 64-step epipolar
-    search for all S x NI lanes every frame — 170 ms/frame at frontend
-    shapes on a v5e chip (r4 battery), although in steady state ~80% of
+    search for all S x NI lanes every frame, although in steady state ~80% of
     lanes are converged (interval below the slack gate), OOB, or invalid:
     DSO's traceOn (ImmaturePoint.cpp) early-returns on those without
     touching the image. Here:
@@ -517,11 +514,11 @@ def trace_points_all_compact(
     TIERED dispatch (r4): ``budget``/``num_steps``/``max_reach`` let the
     caller run a SMALL steady-state program on most frames. The trace is
     gather-bound and budget-shaped — cost = budget x num_steps x 8 taps
-    regardless of real lane occupancy (35.6 ms at 2048x48 on a v5e, 11
-    ns/load) — but in steady state nearly all searching lanes have a
+    regardless of real lane occupancy — but in steady state nearly all
+    searching lanes have a
     BRACKETED idepth interval whose epipolar segment is a few px, so a
     (1024, 16)-shaped program with ``max_reach = 15`` covers them at
-    DSO's own 1 px sample spacing for ~6 ms. Lanes whose segment exceeds
+    DSO's own 1 px sample spacing at ~1/6 of the work. Lanes whose segment exceeds
     ``max_reach`` (fresh candidates: idepth in (0, inf) clamps to
     maxPixSearch) are DEFERRED — previous state kept, counted in
     n_overflow — until the frontend's next full-shape dispatch (the

@@ -10,7 +10,7 @@ prior releases and depth converges from parallax. The stereo initializer
 single-frame; this module covers mono-only (DSO-parity) operation and is
 selected with ``cfg.runtime.mono_initializer``.
 
-TPU design: DSO's per-level point hierarchies (CoarseInitializer's
+Array design: DSO's per-level point hierarchies (CoarseInitializer's
 ``points[lvl]`` with parent links + KNN regularization graphs) become
 fixed-budget per-level point sets selected from each level's own gradient
 map; each track_frame sweeps coarse-to-fine, blending idepths down the
@@ -77,7 +77,7 @@ def _knn_graph(u, v, lane_ok, budget):
 
 def _grid_select(abs_grad_l, budget: int, min_grad: float = 1.0):
     """Coarse-level candidate selection: per-cell gradient argmax over a
-    grid sized to the budget (the TPU analog of DSO's in-level
+    grid sized to the budget (the fixed-shape analog of DSO's in-level
     gridMaxSelection). Returns (u, v, lane_ok) with N == budget."""
     H, W = abs_grad_l.shape
     cx = max(1, int(np.ceil(np.sqrt(budget * W / max(H, 1)))))

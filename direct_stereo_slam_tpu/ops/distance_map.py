@@ -7,9 +7,11 @@ keyframe at half resolution, and candidate points are only activated where
 the distance to the nearest existing point exceeds an adaptive threshold —
 keeping the active set spatially uniform.
 
-TPU-native: the BFS becomes K iterations of a 3x3 min-plus relaxation
-(chebyshev-ish distance, capped at K — the gate only needs distances up to
-``4 * my_type`` anyway, reference FrontEnd.cpp:442).
+The BFS becomes MAX_DIST iterations of a 3x3 min-plus relaxation
+(chebyshev distance, capped at MAX_DIST — the gate only needs distances up
+to ``4 * my_type`` anyway, reference FrontEnd.cpp:442). XLA fuses the
+relaxation chain; ``reference_distance_map`` is the plain numpy brute
+force it is checked against.
 """
 
 from __future__ import annotations
@@ -18,8 +20,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+import numpy as np
 
 MAX_DIST = 16
 
@@ -42,53 +43,40 @@ def _relax_once(d: jnp.ndarray) -> jnp.ndarray:
     return jnp.minimum(d, winmin + 1.0)
 
 
-def _dist_kernel(d0_ref, out_ref):
-    """All MAX_DIST relaxation iterations fused in VMEM: the grid is read
-    once and written once. (Measured: XLA fuses the equivalent fori_loop
-    just as well on this grid size — see build_distance_map docstring.)"""
-    d = d0_ref[...]
-    for _ in range(MAX_DIST):
-        d = _relax_once(d)
-    out_ref[...] = d
-
-
-@partial(jax.jit, static_argnums=(1, 2, 3))
-def _distance_from_occupancy(dist0: jnp.ndarray, h2: int, w2: int,
-                             use_pallas: bool) -> jnp.ndarray:
-    if use_pallas:  # True on TPU; "interpret" exercises the kernel on CPU
-        return pl.pallas_call(
-            _dist_kernel,
-            out_shape=jax.ShapeDtypeStruct((h2, w2), jnp.float32),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            interpret=(use_pallas == "interpret"),
-        )(dist0)
-    return jax.lax.fori_loop(0, MAX_DIST, lambda _, d: _relax_once(d), dist0)
-
-
-@partial(jax.jit, static_argnums=(3, 4, 5))
+@partial(jax.jit, static_argnums=(3, 4))
 def build_distance_map(
     pu: jnp.ndarray,      # [N] projected pixel x at half resolution
     pv: jnp.ndarray,      # [N]
     mask: jnp.ndarray,    # [N] bool
     h2: int,
     w2: int,
-    use_pallas: bool | None = None,
 ) -> jnp.ndarray:
-    """Returns [h2, w2] float distance-to-nearest-occupied (capped).
-
-    The scatter stays in XLA (Mosaic has no vectorized arbitrary scatter).
-    Two stencil backends, measured on v5e at half-res KITTI (616x184,
-    in-program, dispatch excluded): XLA fuses the whole fori_loop chain
-    VMEM-resident at 1.1 us/transform; the explicit Pallas kernel runs
-    3.0 us (its concat-based lane shifts lower to Mosaic relayouts that
-    XLA's fused shift-iota code avoids). XLA is therefore the default;
-    the Pallas kernel is kept as a verified variant and a template for
-    stencils XLA fails to fuse."""
-    if use_pallas is None:
-        use_pallas = False
+    """Returns [h2, w2] float distance-to-nearest-occupied (capped)."""
     ui = jnp.clip(jnp.round(pu).astype(jnp.int32), 0, w2 - 1)
     vi = jnp.clip(jnp.round(pv).astype(jnp.int32), 0, h2 - 1)
     occ = jnp.zeros((h2, w2), bool).at[vi, ui].max(mask)
     dist = jnp.where(occ, 0.0, float(MAX_DIST))
-    return _distance_from_occupancy(dist, h2, w2, use_pallas)
+    return jax.lax.fori_loop(0, MAX_DIST, lambda _, d: _relax_once(d), dist)
+
+
+def reference_distance_map(pu, pv, mask, h2: int, w2: int,
+                           rows_per_chunk: int = 8) -> np.ndarray:
+    """Numpy brute force: chebyshev distance from every cell to the nearest
+    occupied cell, capped at MAX_DIST. Rows go in chunks so a half-res
+    KITTI grid against thousands of points stays small in memory."""
+    pu, pv, mask = np.asarray(pu), np.asarray(pv), np.asarray(mask, bool)
+    ui = np.clip(np.round(pu).astype(int), 0, w2 - 1)
+    vi = np.clip(np.round(pv).astype(int), 0, h2 - 1)
+    occ = np.zeros((h2, w2), bool)
+    occ[vi[mask], ui[mask]] = True
+    ys, xs = np.nonzero(occ)
+    out = np.full((h2, w2), float(MAX_DIST), np.float32)
+    if len(ys) == 0:
+        return out
+    gx = np.arange(w2)
+    for y0 in range(0, h2, rows_per_chunk):
+        gy = np.arange(y0, min(y0 + rows_per_chunk, h2))
+        d = np.maximum(np.abs(gy[:, None, None] - ys),
+                       np.abs(gx[None, :, None] - xs)).min(-1)
+        out[gy] = np.minimum(d, MAX_DIST)
+    return out

@@ -3,7 +3,7 @@
 Equivalent of DSO ``getInterpolatedElement33/31`` (reference call sites:
 TrackerAndScaler.cpp:790, 1106; PoseEstimator.cpp:237; LoopHandler.cpp:177).
 
-TPU notes: implemented as four XLA gathers over a flattened image with
+Implemented as four XLA gathers over a flattened image with
 precomputed linear indices; out-of-bounds lanes are clamped and must be
 masked by the caller (the kernels all carry an explicit validity mask).
 """
@@ -15,14 +15,14 @@ import jax.numpy as jnp
 import numpy as np
 
 
-# TPU gathers have two regimes (measured on v5e): few indices -> cost is
-# per-gather-op latency, so 4 rows-of-C gathers win; many indices -> cost is
-# per-index, and gathers of scalar rows are ~7x cheaper than rows-of-C
-# (0.025 ms vs 0.168 ms at 262k indices). The scalar-row form needs
-# planes-first [C, H, W] STORAGE: transposing [H, W, 3] on the fly is worse
-# than either (TPU minor-dim-3 transposes are extremely slow). Callers with
-# large index sets keep their images planes-first and use
-# bilinear_gather_planes; everyone else uses bilinear_gather.
+# The sampling forms below were chosen for two gather regimes: few indices
+# -> cost is per gather op, so 4 rows-of-C gathers win; many indices ->
+# cost is per index, where gathers of scalar rows can beat rows-of-C. The
+# scalar-row form needs planes-first [C, H, W] storage (transposing
+# [H, W, 3] on the fly costs more than either). Callers with large index
+# sets keep their images planes-first and use bilinear_gather_planes;
+# everyone else uses bilinear_gather. Which form wins where on a GPU is
+# still to be measured.
 
 
 def bilinear_gather(img: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
@@ -82,7 +82,7 @@ def bilinear_gather_scalar(img: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray) -> 
 
 
 def flat_take(arr1d: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """Take from a rank-1 array with indices reshaped lane-aligned [M, 128].
+    """Take from a rank-1 array with indices reshaped to [M, 128].
 
     This pins XLA to its fast vectorized-take lowering; see
     bilinear_take_plane's docstring for the measured pathology it avoids."""
@@ -96,15 +96,14 @@ def flat_take(arr1d: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
 def bilinear_take_plane(plane: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     """img plane: [H, W]; u, v: [...] -> [...] interpolated scalar.
 
-    Flat-1D lane-aligned formulation: the four corner reads are expressed as
-    takes from a rank-1 operand with indices reshaped to [M, 128]. Measured on
-    the chip (r3): XLA's lowering for the generic N-d-index row gather above is
-    context-sensitive — the SAME 4.2M-index trace-search gather compiles to
-    anywhere between 0.03 ms and 97 ms depending on surrounding ops, vmap, and
-    even runtime index distribution (converged epipolar traces, whose sample
-    positions cluster, hit a ~400x pathological path). The rank-1 +
-    [M, 128]-index form has measured flat-fast (~0.2 ms at 4.2M indices) in
-    every context tried; use it for all large index sets."""
+    Flat-1D formulation: the four corner reads are expressed as takes from a
+    rank-1 operand with indices reshaped to [M, 128]. XLA's lowering of the
+    generic N-d-index row gather above can be context-sensitive: the SAME
+    4.2M-index trace-search gather has compiled to programs orders of
+    magnitude apart depending on surrounding ops, vmap, and even runtime
+    index distribution (converged epipolar traces cluster their sample
+    positions). The rank-1 + [M, 128]-index form stayed fast in every
+    context tried; use it for all large index sets."""
     H, W = plane.shape
     u = jnp.clip(u, 0.0, W - 1.001)
     v = jnp.clip(v, 0.0, H - 1.001)
@@ -166,13 +165,12 @@ def bilinear_gather_frames(images: jnp.ndarray, fidx: jnp.ndarray,
     of planes sampled in frame ``fidx`` at (u, v) — ROW-GATHER form: four
     gathers of C-channel rows from the [F*H*W, C] flat view.
 
-    Regime note (r5, measured on chip): mid-size index sets (10k-300k —
-    BA linearization at [NP, W, 8], activation at [lanes, W, 8]) are
-    per-gather-OP latency bound, so the flat-take form's 12 lane-aligned
-    takes cost ~3x this form's 4 row gathers (activation pass chain 48 ->
-    ~16 ms, BA linearize 15.7 -> ~6 ms). The take form still wins at the
-    trace's multi-million clustered index sets where this row gather has
-    a measured ~400x pathological lowering; see bilinear_take_plane."""
+    Regime note: mid-size index sets (10k-300k — BA linearization at
+    [NP, W, 8], activation at [lanes, W, 8]) are per-gather-op bound, so
+    this form's 4 row gathers beat the flat-take form's 12 takes. The take
+    form is kept for the trace's multi-million clustered index sets, where
+    this row gather's lowering can be pathological; see
+    bilinear_take_plane."""
     F, H, W, C = images.shape
     u = jnp.clip(u, 0.0, W - 1.001)
     v = jnp.clip(v, 0.0, H - 1.001)

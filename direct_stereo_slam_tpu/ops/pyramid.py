@@ -6,9 +6,9 @@ are central differences computed on each level's intensity (DSO
 HessianBlocks.cpp makeImages, called from reference FrontEnd.cpp:605, 680).
 Also produces the squared-gradient magnitude used by the pixel selector.
 
-TPU notes: the pyramid is built in one jitted program of reduce-window +
-slicing ops (pure VPU work, fused by XLA); levels are a tuple of arrays
-(static shapes).
+The pyramid is built in one jitted program of reduce-window + slicing ops
+(elementwise work, fused by XLA); levels are a tuple of arrays (static
+shapes).
 """
 
 from __future__ import annotations
@@ -35,9 +35,8 @@ def _gradients(img: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Central differences; border pixels get zero gradient (the reference
     never samples within 2 px of the border).
 
-    Implemented with pad+slice (cheap layout-preserving ops on TPU) instead
-    of ``.at[interior].set`` scatters, and border-zeroing via an iota mask
-    (measured ~4x faster at 1232x368)."""
+    Implemented with pad+slice (layout-preserving ops) instead of
+    ``.at[interior].set`` scatters, and border-zeroing via an iota mask."""
     h, w = img.shape
     xp = jnp.pad(img, 1)
     dx = 0.5 * (xp[1:-1, 2:] - xp[1:-1, :-2])
@@ -50,8 +49,8 @@ def _gradients(img: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 
 
 def _downsample2(img: jnp.ndarray) -> jnp.ndarray:
-    """2x2 mean pool via reshape (one fused reduction; avoids 4 strided
-    slices that defeat TPU tiling)."""
+    """2x2 mean pool via reshape (one fused reduction instead of 4 strided
+    slices)."""
     h, w = img.shape
     h2, w2 = h // 2, w // 2
     return img[: 2 * h2, : 2 * w2].reshape(h2, 2, w2, 2).mean(axis=(1, 3))

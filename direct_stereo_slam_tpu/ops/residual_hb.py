@@ -1,6 +1,6 @@
 """Fused direct-alignment residual / Jacobian / Hessian passes.
 
-This is the TPU-native equivalent of the reference's hot SIMD loops —
+This is the array-program equivalent of the reference's hot SIMD loops —
 ``calcResPose`` + ``calcGSSSEPose`` (TrackerAndScaler.cpp:699-852, 640-697),
 ``calcResScale`` + ``calcGSSSEScale`` (TrackerAndScaler.cpp:1007-1172,
 966-1005) and ``PoseEstimator::calcRes``/``calcGSSSE``
@@ -28,8 +28,8 @@ import jax
 import jax.numpy as jnp
 from functools import partial
 
-# Hessian/gradient reductions and point-warp matmuls need full f32 even on
-# TPU (default matmul precision there is bfloat16).
+# Hessian/gradient reductions and point-warp matmuls need full f32: an
+# unpinned f32 product may run at reduced precision (TF32 on a GPU).
 _HI = jax.lax.Precision.HIGHEST
 _mm = partial(jnp.matmul, precision=_HI)
 
@@ -78,21 +78,17 @@ def _huber_energy(r, hw, sat, max_energy):
 # ---------------------------------------------------------------------------
 # image operand: plain [H, W, 3] plane, or a FOLDED batch (stack [B, H, W, 3],
 # lane scalar). The folded form exists for batch-eval over B sequences: a
-# vmapped pass over per-sequence planes hands XLA batched-operand gathers
-# (~1.4x per-index cost on TPU, the measured batch-scaling wall); closing the
-# stack over the vmap and folding the lane index into one rank-1 take keeps
-# the fast flat-gather lowering at any B. Values are bitwise-identical.
+# vmapped pass over per-sequence planes hands XLA batched-operand gathers;
+# closing the stack over the vmap and folding the lane index into one
+# rank-1 take keeps the flat-gather lowering at any B. Values are
+# bitwise-identical.
 #
 # The PLAIN path uses the generic row gather, NOT the flat-take form: these
 # passes run over small index sets (~2000 template points per level), where
-# the take form's 12 lane-aligned takes pay 12 fixed per-op overheads inside
-# the LM while_loops. Measured on-chip A/B at HEAD (v5e, KITTI res, preset
-# 0): track_candidate 3.06 ms + scale 4.06 ms with the row gather vs 15.3
-# ms/frame combined with takes — the r3 blanket switch to takes here was the
-# 195->63 FPS headline regression (r5 bisect). The take forms remain correct
-# for the LARGE index sets (epipolar trace, activation, BA linearization)
-# where the row gather's context-sensitive lowering hits its ~400x
-# pathological path; see ops/interp.py.
+# the take form's 12 takes pay 12 fixed per-op overheads inside the LM
+# while_loops. The take forms remain for the LARGE index sets (epipolar
+# trace) where the row gather's lowering can be pathological; see
+# ops/interp.py.
 # ---------------------------------------------------------------------------
 
 
@@ -216,7 +212,7 @@ def pose_residual_pass(
     n_in = jnp.sum(in_mask)
     n_safe = jnp.maximum(n_in, 1.0)
     Jw = J * w
-    H = _mm(Jw.T, J) / n_safe                       # [8,8] on MXU
+    H = _mm(Jw.T, J) / n_safe                       # [8,8]
     b = _mm(Jw.T, residual[:, None])[:, 0] / n_safe  # [8]
 
     H = H * POSE_PRECOND[:, None] * POSE_PRECOND[None, :]

@@ -7,7 +7,7 @@ three pyramid scales with per-level gradient down-weighting. The potential
 (block size) is adapted by the host between keyframes to hit the desired
 candidate density, exactly like DSO's feedback loop.
 
-TPU notes: block reductions are reshapes + max/argmax (VPU); thresholds use
+Block reductions are reshapes + max/argmax; thresholds use
 a sorted-quantile per 32x32 block. Output is a dense [H, W] int8 map with
 values {0, 1, 2, 4} = {unselected, level-0, level-1, level-2 selection}.
 """

@@ -1,7 +1,7 @@
-"""Multi-chip execution: data-parallel batch evaluation over sequences.
+"""Multi-device execution: data-parallel batch evaluation over sequences.
 
 The reference is a single-process shared-memory system (SURVEY.md §2.3);
-SLAM state is inherently sequential, so the TPU-native multi-chip story is
+SLAM state is inherently sequential, so the multi-device story is
 data parallelism over *sequences/configs* (BASELINE.json config 5: headless
 batch eval over KITTI 00-10): each device runs an independent sequence's
 per-frame step; within a device the point/candidate axes stay batched.
@@ -10,7 +10,8 @@ per-frame step; within a device the point/candidate axes stay batched.
 tracker templates + new frames -> tracked poses + stereo scale, jitted over
 a ``Mesh('seq')`` with `shard_map` so each device owns B/n sequences and no
 cross-device collectives sit on the per-frame critical path (an all-gather
-of the tiny pose outputs rides ICI only at the epoch boundary).
+of the tiny pose outputs crosses the device links only at the epoch
+boundary).
 """
 
 from __future__ import annotations
@@ -47,15 +48,10 @@ def make_batched_step(intr: PyramidIntrinsics, cfg: SLAMConfig, levels: int):
     with leading batch dim on every leaf), T_init [B, 4, 4]."""
 
     def step(img0, img1, template, T_init):
-        # PLAIN vmap over per-sequence pyramid planes. History: r2-r4 used
-        # a "folded" form (close over [B, Hl, Wl, 3] stacks, sample each
-        # lane through one rank-1 flat take) because the r2-era vmapped
-        # row gather lowered to a slow batched-operand gather (8 x 195
-        # ideal -> 278 measured). After the r5 sampling revert
-        # (ops/residual_hb), the measured chip numbers flipped hard:
-        # plain vmap 301/310/263 aggregate FPS at B=8/16/32 vs the folded
-        # form's 116/27/21 (BENCH r5 batch sweep, both measured each
-        # run) — the folded take path pays its per-op overheads times B.
+        # PLAIN vmap over per-sequence pyramid planes, not the "folded"
+        # form (close over [B, Hl, Wl, 3] stacks, sample each lane through
+        # one rank-1 flat take), whose take path pays its per-op overheads
+        # times B (bench.py batch sweep measures both).
         def one_sequence(pyr0_data, pyr1_data, z_src, template, T_init):
             # derive scalars from per-shard data: under shard_map's
             # varying-axes checking (jax>=0.8), replicated literals in
@@ -136,8 +132,8 @@ def shard_candidate_retrack(intr: PyramidIntrinsics, cfg: SLAMConfig,
     batch, FrontEnd.cpp:165-186) over the mesh: the new frame's pyramid and
     the tracker template are replicated, the candidate poses are partitioned
     on their leading axis, and the winner is chosen from an `all_gather` of
-    the tiny per-candidate (res, ok) outputs — the only collective, riding
-    ICI. Returns step(pyr_new, template, T_cands [C,4,4]) ->
+    the tiny per-candidate (res, ok) outputs — the only collective.
+    Returns step(pyr_new, template, T_cands [C,4,4]) ->
     (res0 [C], ok [C], winner scalar)."""
     from ..models.tracker import track_candidate
 
@@ -222,7 +218,7 @@ def shard_posegraph_optimize(mesh: Mesh, iterations: int = 25,
     scatter-adds partial gradient / block-Jacobi / Hessian-vector products
     into the full node vector; a `psum` over the mesh completes every CG
     matvec (the collective pattern of a distributed sparse solver). Scales
-    the matrix-free PCG of loop/pose_graph.py past one chip's edge budget.
+    the matrix-free PCG of loop/pose_graph.py past one device's edge budget.
 
     Returns step(data: PoseGraphData) -> [N, 4, 4] with edge arrays padded
     to a multiple of the mesh size."""

@@ -68,6 +68,27 @@ def run_sequence(ds, cfg: SLAMConfig, K: np.ndarray, t_cam1_cam0: np.ndarray,
     return node, handler, time.perf_counter() - t0
 
 
+def run_frames(frames, cfg: SLAMConfig, intr, t_cam1_cam0: np.ndarray,
+               threaded_loop: Optional[bool] = None,
+               timers: Optional[StageTimers] = None):
+    """Run SLAMNode + LoopHandler over pre-loaded ``(img0, img1, timestamp)``
+    frames, all sharing one StageTimers. Returns (node, handler, timers,
+    wall_seconds); the loop handler's thread is stopped on return."""
+    timers = StageTimers() if timers is None else timers
+    handler = LoopHandler(cfg, intr, timers=timers, threaded=threaded_loop)
+    node = SLAMNode(cfg, intr, intr, t_cam1_cam0, loop_handler=handler)
+    node.timers = timers
+    node.frontend.timers = timers
+    t0 = time.perf_counter()
+    try:
+        for img0, img1, ts in frames:
+            node.process(img0, img1, ts)
+        node.finish()
+        return node, handler, timers, time.perf_counter() - t0
+    finally:
+        handler.close()
+
+
 def kitti_gt_positions(root: str, seq: str) -> Optional[np.ndarray]:
     """Ground-truth cam0 positions [N, 3] from <root>/poses/<seq>.txt
     (KITTI odometry devkit format: 12 floats = 3x4 row-major per frame)."""

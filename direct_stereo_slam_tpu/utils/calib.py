@@ -275,19 +275,19 @@ def parse_vignette(path: str, out_w: int = None, out_h: int = None) -> np.ndarra
     """Load a DSO vignette image (16-bit or 8-bit PNG/PGM of relative optical
     attenuation; Undistort::loadPhotometricCalibration). Returns float [H, W]
     normalized so max == 1, optionally resized to the working resolution."""
-    img = None
-    try:
-        import cv2
-        img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-        if img is not None and img.ndim == 3:
+    from .imageio import image_backend
+
+    kind, lib = image_backend()
+    if kind == "cv2":
+        img = lib.imread(path, lib.IMREAD_UNCHANGED)
+        if img is None:
+            raise IOError(path)
+        if img.ndim == 3:
             img = img.mean(axis=2)
-        if img is not None and (out_w or out_h):
-            img = cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_AREA)
-    except ImportError:
-        pass
-    if img is None:
-        from PIL import Image
-        im = Image.open(path).convert("F")
+        if out_w or out_h:
+            img = lib.resize(img, (out_w, out_h), interpolation=lib.INTER_AREA)
+    else:
+        im = lib.open(path).convert("F")
         if out_w and out_h:
             im = im.resize((out_w, out_h))
         img = np.asarray(im)

@@ -5,19 +5,18 @@ Equivalent of the reference's hand-rolled ``TimeVector`` + ``print_average``
 wall-clock spans, averaged and printed at shutdown with the same stage
 names so timing tables are comparable side-by-side.
 
-Round-3 additions for HONEST profiling on an async-dispatch device:
+Two aids for profiling on an async-dispatch device:
 
 - ``sync=True`` puts a device barrier at every span exit, so each stage's
   wall-clock includes the device work it enqueued instead of letting it
-  drain inside whichever later stage blocks first (the r2 table showed
-  ``dso_opt: 0.36 ms`` — dispatch only — while its device time was billed
-  to ``activate``'s pull). The barrier is a trivial jitted program that
-  completes only after everything enqueued before it (TPU executes
-  programs in order per device), plus one host<->device round-trip; run
-  ``barrier_overhead_ms()`` to calibrate and subtract.
+  drain inside whichever later stage blocks first (without it a stage
+  that only dispatches reads as nearly free while its device time is
+  billed to the next stage that pulls). The barrier is a trivial jitted
+  program that completes only after everything enqueued before it on the
+  device's stream; run ``barrier_overhead_ms()`` to calibrate and
+  subtract its cost.
 - ``instrument_pulls()`` wraps ``jax.device_get`` to count blocking host
-  pulls and their wall time per active span — the per-stage RTT bill on a
-  remote-attached chip.
+  pulls and their wall time per active span.
 """
 
 from __future__ import annotations
@@ -41,8 +40,8 @@ def _device_barrier():
 
 
 def barrier_overhead_ms(n: int = 5) -> float:
-    """Median cost of a back-to-back barrier (dispatch + one RTT on a
-    remote-attached chip): the per-span overhead sync mode adds."""
+    """Median cost of a back-to-back barrier (dispatch + one host sync):
+    the per-span overhead sync mode adds."""
     _device_barrier()
     samples = []
     for _ in range(n):

@@ -51,12 +51,9 @@ def dump_template_idepth(out_dir: str, kf_id: int, template, pyr0,
     _write_rgb(os.path.join(out_dir, f"{prefix}_{kf_id:05d}_idepth.png"), rgb)
 
 def _write_rgb(path: str, rgb: np.ndarray):
-    try:
-        import cv2
-        cv2.imwrite(path, rgb[..., ::-1])
-    except ImportError:
-        from PIL import Image
-        Image.fromarray(rgb).save(path)
+    from ..utils.imageio import write_rgb
+
+    write_rgb(path, rgb)
 
 
 def dump_tracking_residual(out_dir: str, frame_id: int, img_new: np.ndarray,

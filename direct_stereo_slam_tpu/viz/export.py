@@ -93,13 +93,9 @@ def depth_image_rgb(idepth_map: np.ndarray,
 
 def depth_image_png(path: str, idepth_map: np.ndarray, image: Optional[np.ndarray] = None):
     """Jet-colored idepth overlay (invalid = grayscale background)."""
-    rgb = depth_image_rgb(idepth_map, image)
-    try:
-        import cv2
-        cv2.imwrite(path, rgb[..., ::-1])
-    except ImportError:
-        from PIL import Image
-        Image.fromarray(rgb).save(path)
+    from ..utils.imageio import write_rgb
+
+    write_rgb(path, depth_image_rgb(idepth_map, image))
 
 
 def ate_rmse(est: np.ndarray, gt: np.ndarray) -> float:

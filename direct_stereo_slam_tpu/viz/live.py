@@ -1,10 +1,10 @@
 """Live visualization: a self-refreshing HTML viewer.
 
-TPU-native stand-in for the reference's Pangolin GUI
+Headless stand-in for the reference's Pangolin GUI
 (pangolin_viewer/PangolinLoopViewer.{h,cpp}: three panes — trajectory +
 cloud, KF depth image, lidar scan — plus loop-aware cloud re-posing via
 ``modifyKeyframePoseByKFID`` and green/red current-vs-matched scan display
-via ``refreshLidarData``). A GL window cannot exist on a headless TPU pod;
+via ``refreshLidarData``). A GL window cannot exist on a headless server;
 instead the viewer rewrites ONE self-contained ``live.html`` (inline JSON
 + canvas JS, <meta refresh>) at a bounded rate. Open it in any browser
 (file:// or through ``python -m http.server``) and watch the run: the
@@ -114,20 +114,10 @@ class LiveViewer:
         depth pane, PangolinLoopViewer KF depth image): store the latest
         jet idepth overlay as an embedded PNG."""
         import base64
-        png = None
-        try:
-            import cv2
-            ok, buf = cv2.imencode(".png", np.asarray(rgb)[..., ::-1])
-            if ok:
-                png = bytes(buf)
-        except ImportError:
-            import io
-            from PIL import Image
-            bio = io.BytesIO()
-            Image.fromarray(np.asarray(rgb)).save(bio, format="PNG")
-            png = bio.getvalue()
-        if png is None:
-            return
+
+        from ..utils.imageio import encode_png
+
+        png = encode_png(rgb)
         with self._lock:
             self._depth_b64 = base64.b64encode(png).decode("ascii")
         self._maybe_write()

@@ -2,7 +2,7 @@
 //
 // The reference's ingestion path is C++ (ROS node + rosbag reading +
 // cv_bridge + DSO Undistort, reference src/main.cpp:212-265); this library
-// is its TPU-framework counterpart: image decoding (PGM/PPM), the fused
+// is its JAX-framework counterpart: image decoding (PGM/PPM), the fused
 // photometric-LUT + bilinear-remap undistortion (DSO
 // Undistort::undistort<uchar> + photometricUndist), and a threaded
 // prefetching frame queue so disk IO and preprocessing overlap device

@@ -5,7 +5,7 @@ reference, this harness quantifies the drift on adversarial synthetic
 sequences so the chosen defaults are justified by numbers, not vibes:
 
 1. Winner selection over the tracking try-list: staged growing batches
-   (1 -> 5 -> 78, TPU-friendly early exit; `tracker.winner_policy=
+   (1 -> 5 -> 78, early exit per batch; `tracker.winner_policy=
    "staged"`) vs the reference's serial achievedRes-tightening walk
    (`"serial"`, FrontEnd.cpp:198-248).
 2. Windowed-BA step acceptance: energy-gated LM (default) vs the
@@ -135,12 +135,9 @@ def main():
 
     import jax
     jax.config.update("jax_platforms", "cpu") if args.cpu else None
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          "/tmp/dsslam_jax_cache_cpu")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
-    except Exception:
-        pass
+    from direct_stereo_slam_tpu.utils.compile_cache import (
+        setup_compilation_cache)
+    setup_compilation_cache()
 
     grid = [
         ("nominal", ["baseline", "serial_winner", "force_accept"]),

@@ -49,23 +49,9 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    try:
-        # host-keyed like bench._setup_cache, so the eval reuses the bench
-        # run's compiled programs (and vice versa)
-        import hashlib
-        try:
-            with open("/proc/cpuinfo") as f:
-                flags = next(l for l in f if l.startswith("flags"))
-            suffix = "_" + hashlib.md5(flags.encode()).hexdigest()[:8]
-        except Exception:
-            suffix = ""
-        if args.cpu:
-            suffix = "_cpu" + suffix
-        jax.config.update("jax_compilation_cache_dir",
-                          "/tmp/dsslam_jax_cache" + suffix)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
-    except Exception:
-        pass
+    from direct_stereo_slam_tpu.utils.compile_cache import (
+        setup_compilation_cache)
+    setup_compilation_cache()
 
     from direct_stereo_slam_tpu.config import make_config
     from direct_stereo_slam_tpu.io.dataset import KittiOdometryDataset

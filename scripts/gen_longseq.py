@@ -42,8 +42,6 @@ def main():
     ap.add_argument("--fps", type=float, default=10.0)
     args = ap.parse_args()
 
-    import jax
-    jax.config.update("jax_platforms", "cpu")   # renderer is host-side
     import jax.numpy as jnp
     from PIL import Image
 

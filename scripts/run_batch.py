@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Multi-sequence batched evaluation over a device mesh.
 
-The TPU-native multi-chip story for this workload (SURVEY.md 2.3): SLAM
+The multi-device story for this workload (SURVEY.md 2.3): SLAM
 state is sequential per sequence, so scale-out is DATA PARALLELISM over
 sequences — the reference's headless batch-eval scenario (BASELINE.json
 config 5, KITTI 00-10) as one `shard_map` program over a `Mesh('seq')`.
@@ -12,8 +12,11 @@ Examples:
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python scripts/run_batch.py --cpu --sequences 8 --frames 20
 
-    # one real TPU chip, 8 sequences batched on it
-    python scripts/run_batch.py --sequences 8 --frames 20
+    # one GPU, 8 sequences batched on it
+    python scripts/run_batch.py --devices 1 --sequences 8 --frames 20
+
+    # four GPUs, 8 sequences sharded two per card
+    python scripts/run_batch.py --devices 4 --sequences 8 --frames 20
 """
 
 import argparse

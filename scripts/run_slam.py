@@ -226,8 +226,11 @@ def main():
     so = np.array([r[1:] for r in handler.odometry_rows()])
     dl = np.array([r[1:] for r in handler.optimized_rows()])
     if len(so):
-        plot_trajectories(os.path.join(args.out, "trajectory.png"),
-                          [("sodso", so), ("dslam", dl)], gt=gt)
+        try:
+            plot_trajectories(os.path.join(args.out, "trajectory.png"),
+                              [("sodso", so), ("dslam", dl)], gt=gt)
+        except ImportError as e:     # matplotlib is optional
+            print(f"trajectory plot skipped: {e}")
 
     print("\n************** Statistics (ms) ***************")
     print(node.timing_report())

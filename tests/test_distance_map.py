@@ -1,12 +1,12 @@
-"""Distance-transform tests: exactness vs brute force, and Pallas-kernel
-equivalence with the XLA stencil (the kernel runs in interpret mode on CPU
-so its logic is covered without a chip)."""
+"""Distance-transform tests: exactness vs brute force, at a small grid and
+at the half-resolution KITTI grid the frontend builds (184x616)."""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from direct_stereo_slam_tpu.ops.distance_map import MAX_DIST, build_distance_map
+from direct_stereo_slam_tpu.ops.distance_map import (
+    MAX_DIST, build_distance_map, reference_distance_map)
 
 pytestmark = pytest.mark.smoke
 
@@ -48,13 +48,26 @@ def test_empty_mask_is_all_max():
     assert np.all(out == MAX_DIST)
 
 
-def test_pallas_kernel_matches_xla():
+def test_chunked_reference_matches_brute_force():
+    rng = np.random.RandomState(1)
+    h2, w2, n = 37, 53, 40
+    pu = rng.rand(n).astype(np.float32) * (w2 - 1)
+    pv = rng.rand(n).astype(np.float32) * (h2 - 1)
+    mask = rng.rand(n) < 0.7
+    np.testing.assert_array_equal(
+        reference_distance_map(pu, pv, mask, h2, w2, rows_per_chunk=5),
+        _brute_force(pu, pv, mask, h2, w2))
+
+
+def test_half_res_kitti_grid_matches_brute_force():
+    """The frontend's grid: KITTI 1232x368 at half resolution, with the
+    preset-0 active point budget projected into it."""
     rng = np.random.RandomState(0)
-    h2, w2 = 48, 80
-    n = 60
-    pu = jnp.asarray(rng.rand(n).astype(np.float32) * (w2 - 1))
-    pv = jnp.asarray(rng.rand(n).astype(np.float32) * (h2 - 1))
-    mask = jnp.asarray(rng.rand(n) < 0.7)
-    d_xla = build_distance_map(pu, pv, mask, h2, w2, False)
-    d_pal = build_distance_map(pu, pv, mask, h2, w2, "interpret")
-    np.testing.assert_array_equal(np.asarray(d_pal), np.asarray(d_xla))
+    h2, w2, n = 184, 616, 2000
+    pu = rng.rand(n).astype(np.float32) * (w2 - 1)
+    pv = rng.rand(n).astype(np.float32) * (h2 - 1)
+    mask = rng.rand(n) < 0.9
+    out = np.asarray(build_distance_map(
+        jnp.asarray(pu), jnp.asarray(pv), jnp.asarray(mask), h2, w2))
+    np.testing.assert_array_equal(
+        out, reference_distance_map(pu, pv, mask, h2, w2))

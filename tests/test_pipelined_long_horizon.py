@@ -176,9 +176,9 @@ def test_pipelined_long_horizon_matches_sync():
     # aligner's convergence basin at the reference res_thres=10 /
     # inner_percent=90 gates; whether a closure lands is therefore
     # world-luck, and the UNCONDITIONAL closure evidence lives at the
-    # capable configuration instead (bench.py loop lap: KITTI res,
-    # preset-0 densities, pipelined mode, reported as loop_count in
-    # BENCH_r*.json). What this test pins is equivalence: pipelined mode
+    # capable configuration instead (chip_smoke.py loop_lap and the
+    # bench.py loop lap: KITTI res, preset-0 densities, reported as
+    # closures / loop_count). What this test pins is equivalence: pipelined mode
     # must close exactly what sync closes, through the same funnel.
     for k in ("scan", "ringkey_cand", "sc_pass", "direct_try"):
         lo = min(stats_s[k], stats_p[k])

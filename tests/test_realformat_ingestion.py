@@ -176,3 +176,18 @@ def test_eval_kitti_script_on_fixture(tmp_path):
     rec = json.loads(line)
     assert rec["seq"] == "00" and rec["frames"] == 2
     assert "per_frame" in rec["stages_ms"]
+
+
+@pytest.mark.parametrize("kind", ["P5", "P6", "P5-16bit"])
+def test_numpy_pnm_reader(tmp_path, kind):
+    """The PNM path reads without the native library or any image package."""
+    from direct_stereo_slam_tpu.io.dataset import read_pnm_numpy
+
+    rng = np.random.RandomState(0)
+    shape = (6, 5, 3) if kind == "P6" else (6, 5)
+    hi = 65536 if kind.endswith("16bit") else 256
+    img = rng.randint(0, hi, shape).astype(np.uint16 if hi > 256 else np.uint8)
+    raster = img.astype(">u2").tobytes() if hi > 256 else img.tobytes()
+    path = tmp_path / "a.pnm"
+    path.write_bytes(f"{kind[:2]}\n# comment\n5 6\n{hi - 1}\n".encode() + raster)
+    np.testing.assert_array_equal(read_pnm_numpy(str(path)), img)
